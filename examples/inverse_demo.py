@@ -6,8 +6,9 @@ them back with the differentiable renderer
 (fixed-hit-topology gradients; the capability the C++/CUDA reference has
 no counterpart for).
 
-Run (CPU, ~1 min):     python examples/inverse_demo.py
-Run on the TPU chip:   python examples/inverse_demo.py --tpu
+Run on the default device (the GPU where JAX finds one):
+                       python examples/inverse_demo.py
+Force the CPU (~1 min): python examples/inverse_demo.py --cpu
 Outputs: /tmp/inverse_target.png, /tmp/inverse_init.png,
 /tmp/inverse_fit.png and a printed loss curve.
 """
@@ -45,12 +46,13 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--res", type=int, default=96)
     ap.add_argument("--steps", type=int, default=200)
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU instead of the default device")
     args = ap.parse_args()
 
     import jax
 
-    if not args.tpu:
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 

@@ -1,12 +1,12 @@
-"""myraytracer_tpu — a TPU-native differentiable Whitted-style ray tracer.
+"""myraytracer_tpu — a differentiable Whitted-style ray tracer in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 hvkwak/my-raytracer (C++/CUDA): Phong shading, shadows, recursive mirror
 reflections, triangle meshes (flat/Phong), spheres, planes, textures,
 median-split BVH acceleration, and adaptive supersampling — built as a
 wavefront renderer over SoA ray/geometry buffers with a stackless threaded
-BVH traversal, differentiable end-to-end, and sharded over TPU device
-meshes for multi-chip scaling.
+BVH traversal, differentiable end-to-end, and sharded over device
+meshes for multi-card scaling.
 
 Layout:
     models/    scene data model: camera, materials, lights, meshes, scenes

@@ -7,7 +7,8 @@ SURVEY.md §5.6); this provides the idiomatic equivalent:
     python -m myraytracer_tpu render --golden o_08_office --scale 0.5
     python -m myraytracer_tpu bench
 
-Backend selection: --backend tpu (default: whatever JAX picks) | cpu.
+Backend selection: --backend gpu (fails unless JAX finds a GPU) | cpu
+(default: whatever JAX picks).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def _build_parser() -> argparse.ArgumentParser:
     r.add_argument("--out", default="render.png")
     r.add_argument("--scale", type=float, default=1.0,
                    help="resolution scale for golden scenes")
-    r.add_argument("--backend", choices=["cpu", "tpu"], default=None)
+    r.add_argument("--backend", choices=["cpu", "gpu"], default=None)
     r.add_argument("--aa", action="store_true", help="adaptive supersampling")
     r.add_argument("--no-bvh", action="store_true", help="brute-force triangles")
 
@@ -49,10 +50,10 @@ def _build_parser() -> argparse.ArgumentParser:
     f.add_argument("--steps", type=int, default=200)
     f.add_argument("--lr", type=float, default=5e-2)
     f.add_argument("--scale", type=float, default=1.0)
-    f.add_argument("--backend", choices=["cpu", "tpu"], default=None)
+    f.add_argument("--backend", choices=["cpu", "gpu"], default=None)
     f.add_argument("--out", default="fitted.png",
                    help="render of the fitted scene")
-    f.add_argument("--checkpoint", help="orbax checkpoint dir to save "
+    f.add_argument("--checkpoint", help=".npz checkpoint file to save "
                    "(and resume from, if it exists)")
     return ap
 
@@ -60,10 +61,17 @@ def _build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
 
-    if getattr(args, "backend", None) == "cpu":
+    backend = getattr(args, "backend", None)
+    if backend is not None:
         import jax
 
-        jax.config.update("jax_platforms", "cpu")
+        if backend == "cpu":
+            jax.config.update("jax_platforms", "cpu")
+        elif jax.default_backend() != backend:
+            print(f"--backend {backend}: JAX found no {backend} device "
+                  f"(default backend: {jax.default_backend()})",
+                  file=sys.stderr)
+            return 2
 
     if args.cmd == "bench":
         import os
@@ -79,6 +87,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from myraytracer_tpu.ops import tracer as tr
+    from myraytracer_tpu.utils.compile_cache import enable_compile_cache
     from myraytracer_tpu.ops.render import render, render_aa
     from myraytracer_tpu.utils.image import write_png
 
@@ -98,6 +107,7 @@ def main(argv=None) -> int:
             args.golden = matches[0]
         sc = GOLDEN_SCENES[args.golden][0](scale=args.scale)
 
+    enable_compile_cache()
     if args.cmd == "fit":
         import os
 
@@ -115,7 +125,7 @@ def main(argv=None) -> int:
         params = tuple(p for p in args.params.split(",") if p)
         inv = InverseRenderer(sc.build(), param_names=params,
                               optimizer=optax.adam(args.lr), camera=cam)
-        if args.checkpoint and os.path.isdir(args.checkpoint):
+        if args.checkpoint and os.path.isfile(args.checkpoint):
             inv.restore_checkpoint(args.checkpoint)
             print(f"resumed from {args.checkpoint} at step {inv.step_count}")
         xs, ys = cam.pixel_grid()

@@ -10,7 +10,7 @@ against a reference image.
                     leaves ``cam_eye``/``cam_center``/``cam_up``), with
                     optional multi-chip sharding over a ``jax.sharding``
                     mesh (rays sharded, scene replicated, one grad psum
-                    per step — parallel/shard_render's recipe) and orbax
+                    per step — parallel/shard_render's recipe) and .npz
                     checkpoint/resume — the checkpoint/resume subsystem
                     the reference lacks (SURVEY.md §5.4).
 """
@@ -259,33 +259,45 @@ class InverseRenderer:
                          jnp.asarray(ys, jnp.float32), target, steps,
                          log_every, pixel_mode=True)
 
-    # --- checkpoint / resume (orbax) ---------------------------------------
-    def save_checkpoint(self, path: str) -> None:
-        import orbax.checkpoint as ocp
+    # --- checkpoint / resume (.npz) ---------------------------------------
+    def _state(self):
+        return {"params": self.params, "opt_state": self.opt_state,
+                "step_count": np.asarray(self.step_count, np.int64)}
 
-        path = os.path.abspath(path)
-        ckptr = ocp.PyTreeCheckpointer()
-        ckptr.save(
-            path,
-            {
-                "params": self.params,
-                "opt_state": self.opt_state,
-                "step_count": self.step_count,
-            },
-            force=True,
-        )
+    def save_checkpoint(self, path: str) -> None:
+        """Write params, optimizer state and step count to one ``.npz``
+        file, one array per pytree leaf keyed by its tree path. The file
+        is written beside ``path`` and renamed over it, so a crash never
+        leaves a torn checkpoint."""
+        leaves = jax.tree_util.tree_flatten_with_path(self._state())[0]
+        arrays = {jax.tree_util.keystr(k): np.asarray(v) for k, v in leaves}
+        tmp = f"{path}.tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
 
     def restore_checkpoint(self, path: str) -> None:
-        import orbax.checkpoint as ocp
-
-        path = os.path.abspath(path)
-        ckptr = ocp.PyTreeCheckpointer()
-        template = {
-            "params": self.params,
-            "opt_state": self.opt_state,
-            "step_count": self.step_count,
-        }
-        state = ckptr.restore(path, item=template)
-        self.params = state["params"]
-        self.opt_state = state["opt_state"]
+        """Load a :meth:`save_checkpoint` file into this renderer. Its
+        leaves must match this renderer's parameters and optimizer state
+        by tree path, shape and dtype."""
+        leaves, treedef = jax.tree_util.tree_flatten_with_path(self._state())
+        with np.load(path, allow_pickle=False) as z:
+            want = {jax.tree_util.keystr(k) for k, _ in leaves}
+            if set(z.files) != want:
+                raise ValueError(
+                    f"checkpoint {path} does not match this renderer: "
+                    f"missing {sorted(want - set(z.files))}, "
+                    f"unexpected {sorted(set(z.files) - want)}")
+            vals = []
+            for k, ref in leaves:
+                v = z[jax.tree_util.keystr(k)]
+                if v.shape != np.shape(ref) or v.dtype != np.asarray(ref).dtype:
+                    raise ValueError(
+                        f"checkpoint leaf {jax.tree_util.keystr(k)}: "
+                        f"{v.dtype}{list(v.shape)} != "
+                        f"{np.asarray(ref).dtype}{list(np.shape(ref))}")
+                vals.append(v)
+        state = jax.tree_util.tree_unflatten(treedef, vals)
+        self.params = jax.tree.map(jnp.asarray, state["params"])
+        self.opt_state = jax.tree.map(jnp.asarray, state["opt_state"])
         self.step_count = int(state["step_count"])

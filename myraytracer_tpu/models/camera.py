@@ -5,9 +5,9 @@ sites: ``camera.primary_ray(x, y)`` with a *double* overload so the
 adaptive-supersampling kernel can shoot sub-pixel rays
 (mytracer_gpu.cu:141, 208-209; SURVEY.md §1.1).
 
-TPU-native design: instead of one ray per call, :meth:`primary_rays`
+Batched design: instead of one ray per call, :meth:`primary_rays`
 produces a whole ``[..., 3]`` batch of origins/directions from arrays of
-fractional pixel coordinates, so ray generation is one fused VPU pass.
+fractional pixel coordinates, so ray generation is one fused elementwise pass.
 """
 
 from __future__ import annotations

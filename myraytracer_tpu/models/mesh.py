@@ -7,7 +7,7 @@ of ``Mesh::compute_normals`` (mymesh.cpp:103-163): per-face normals
 corner weight ``1 / (||u||*||v|| + u.v)``.
 
 The mesh lives on the host in NumPy; the Scene builder packs all meshes
-into flat device SoA arrays (models/scene.py), the TPU analogue of the
+into flat device SoA arrays (models/scene.py), the device counterpart of the
 reference's AoS->SoA ``build_Data`` (mytracer.cpp:166-296).
 """
 

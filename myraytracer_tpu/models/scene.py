@@ -90,7 +90,7 @@ class SceneData:
     bvh_entry: jnp.ndarray       # [8, N] int32
     bvh_skip: jnp.ndarray        # [8, N] int32
     # packed traversal mirrors: ONE row-gather per traversal step instead
-    # of six (TPU gathers are the traversal bottleneck).
+    # of six (gathers bound the traversal).
     bvh_nodes_packed: jnp.ndarray  # [N, 8] f32: bbmin, bbmax, bits(first), bits(count)
     bvh_links_packed: jnp.ndarray  # [8N, 2] i32: (entry, skip) per octant-major node
     # per-node triangle ranges [lo, hi): every node (leaf AND internal)
@@ -102,7 +102,7 @@ class SceneData:
     bvh_lo: jnp.ndarray          # [N] int32
     bvh_hi: jnp.ndarray          # [N] int32
 
-    # --- cluster cut (ops/cluster.py, the TPU streaming fast path) ---
+    # --- cluster cut (ops/cluster.py, the dense streaming scan) ---
     cl_first: jnp.ndarray        # [K] int32 first triangle of cluster
     cl_count: jnp.ndarray        # [K] int32
     cl_bbmin: jnp.ndarray        # [K, 3]
@@ -216,7 +216,8 @@ class Scene:
         """Pack the scene into device SoA arrays and build the BVH.
 
         ``leaf_size`` bounds BVH leaf occupancy (reference splits to <= 2,
-        mybvh.cpp:270; 4 is a better TPU default — fewer lockstep steps).
+        mybvh.cpp:270; 4 means fewer lockstep steps; not yet swept on the
+        H100, ROADMAP 1.4).
         ``cluster_size`` sets the cluster-cut width for the streaming
         tracer (ops/cluster.py). ``builder`` picks the BVH split rule:
         "sah" (default, tighter bounds) or "median" (reference parity,
@@ -228,8 +229,8 @@ class Scene:
         def mat_id(m: Material) -> int:
             # dedupe identical materials: authoring adds one per object,
             # but many objects share a material — a compact table keeps
-            # per-ray material selects cheap (ops/pallas_shade's in-kernel
-            # table unroll) and shrinks the differentiable mat_* leaves
+            # per-ray material gathers small and shrinks the
+            # differentiable mat_* leaves
             key = (tuple(m.ambient), tuple(m.diffuse), tuple(m.specular),
                    float(m.mirror), float(m.shininess), bool(m.shadowable))
             if key not in mat_index:

@@ -1,4 +1,4 @@
-"""Median-split BVH builder with a TPU-friendly threaded (rope) layout.
+"""Median-split BVH builder with a vectorization-friendly threaded layout.
 
 Algorithm parity with the reference builder (mybvh.cpp:266-362):
   * split axis cycles x,y,z with depth (axis = depth % 3)
@@ -8,7 +8,7 @@ Algorithm parity with the reference builder (mybvh.cpp:266-362):
     every leaf owns a contiguous range (the SoA variant mybvh.cpp:481-513)
   * node pool 2N-1, right child = left child + 1, leaf when <= 2 tris
 
-Deliberate departures (TPU-first, better not faithful):
+Deliberate departures (batch-first, better not faithful):
   * When the median partition degenerates (all centroids equal along the
     axis), the reference aborts the split and leaves an arbitrarily large
     leaf (mybvh.cpp:281-282). We instead force an even halving so leaf
@@ -21,7 +21,7 @@ Deliberate departures (TPU-first, better not faithful):
     is entered, near child first) and a ``skip`` link (next node when a
     subtree is culled). Traversal becomes a single while-loop over a node
     pointer per ray — stackless, divergence-tolerant, and gather-friendly,
-    which is exactly what the TPU vector unit wants.
+    which is what a lockstep walk over a whole ray batch needs.
 
 The builder runs on the host (NumPy), mirroring the reference where the
 BVH is built on host into unified memory and traversed on device
@@ -35,9 +35,8 @@ import dataclasses
 import numpy as np
 
 #: default static leaf-size bound. The reference splits to leaves of <= 2
-#: (mybvh.cpp:270); on a TPU, larger leaves are usually faster — fewer
-#: lockstep traversal steps, and the extra triangle tests are dense VPU
-#: work. build_bvh takes leaf_size explicitly.
+#: (mybvh.cpp:270); larger leaves mean fewer lockstep traversal steps for
+#: more dense triangle tests. build_bvh takes leaf_size explicitly.
 MAX_LEAF = 2
 
 #: sentinel for "traversal finished" / "no child"
@@ -48,7 +47,7 @@ SENTINEL = np.int32(-1)
 class BVHArrays:
     """Flat SoA BVH, host-side. ``n_nodes`` valid entries.
 
-    TPU analogue of BVHNodes_SoA (mybvh.h:49-55) plus threading links.
+    Counterpart of BVHNodes_SoA (mybvh.h:49-55) plus threading links.
     """
 
     bbmin: np.ndarray        # [N, 3] float32

@@ -1,9 +1,7 @@
-"""Cluster-scan triangle intersection — the TPU-native fast path.
+"""Cluster-scan triangle intersection: dense streaming instead of a walk.
 
-TPUs have no usable wide gather (XLA's gather engine sustains only
-~300 M rows/s; Mosaic's in-register dynamic_gather spans 128 lanes), so
-pointer-chasing BVH walks are latency-bound no matter how they are
-phrased. This module replaces the walk with dense streaming compute:
+A pointer-chasing BVH walk spends each step on per-ray gathers. This
+module replaces the walk with dense streaming compute:
 
   build    the median-split BVH is CUT at subtrees holding <= M
            triangles; because the builder stores leaves contiguously
@@ -13,12 +11,12 @@ phrased. This module replaces the walk with dense streaming compute:
            [K, M, 9] corner array.
   trace    a while-loop runs over clusters in build (DFS, spatially
            coherent) order. Per cluster: ONE dynamic-slice fetches the
-           [M, 9] block (a single DMA shared by the whole ray tile), a
+           [M, 9] block (a single copy shared by the whole ray tile), a
            dense [R] AABB test culls, and a `lax.cond` skips the
            cluster's triangle tests entirely when NO ray in the tile
            touches it — tile-level coherence turns the hierarchy's
            log-factor into a branch. Touched clusters run a dense
-           [R, M] Cramer's-rule batch on the VPU.
+           [R, M] Cramer's-rule batch.
 
 Rays in a tile must be spatially coherent for the cond-skip to bite;
 ops/render.py tiles the image in 2D blocks for exactly this reason.
@@ -43,10 +41,8 @@ CLUSTER_M = 128
 def _kappa_rel() -> float:
     """DP-cut per-cluster penalty as a fraction of the root-box SA.
 
-    "auto" (default) = 0.0002, the measured knee of the office sweep —
-    the valley is flat below 0.001 (PERF.md round 4), so the same
-    relative value transfers across scene scales (it is already
-    normalized by the root surface area).
+    "auto" (default) = 0.0002. The value is normalized by the root
+    surface area, so it transfers across scene scales.
     """
     import os as _o
 
@@ -59,15 +55,15 @@ def _kappa_rel() -> float:
 def _dp_cut(tri_bbmin: np.ndarray, tri_bbmax: np.ndarray, m: int):
     """Optimal partition of the leaf order into runs of <= m triangles.
 
-    The kernel's cost per (subgroup, touched cluster) visit is FIXED —
-    one 8 KB DMA plus a full dense [SUB, M] solve, masked lanes
+    The scan's cost per (ray tile, touched cluster) visit is FIXED —
+    one [M, 9] block fetch plus a full dense [R, M] solve, masked lanes
     included — and a cluster's touch probability is ~proportional to its
     AABB surface area. So the right objective for the cut is simply
     ``minimize sum of cluster-box surface areas`` over all partitions of
     the (spatially coherent, BVH-DFS) leaf order into contiguous runs of
     at most m triangles: an O(T*m) dynamic program, vectorized over the
     window axis. A tiny per-cluster epsilon breaks SA ties toward fewer,
-    fuller clusters (less phase-1 work, fewer DMAs).
+    fuller clusters (less phase-1 work, fewer block fetches).
 
     Against the subtree cut on the office scene this packs 247 clusters
     at 64% mean fill into ~157 at ~99% with a LOWER total SA — the
@@ -91,19 +87,10 @@ def _dp_cut(tri_bbmin: np.ndarray, tri_bbmax: np.ndarray, m: int):
         bmax = np.maximum(bmax[:-1], tri_bbmax[w - 1:])
         sa_w[w - 1, :T - w + 1] = _sa(bmin, bmax)
 
-    # per-cluster penalty: every cluster costs phase-1 slab work (per
-    # subgroup, per cluster) + SMEM table rows + a sort key, independent
-    # of its content. Expressed as a fraction of the ROOT box SA so the
-    # knob is scene-scale-free. Office calibration: kernels 113 ms at
-    # total SA 915 (-> ~0.12 ms per SA unit) vs phase-1 17.8 ms over 247
-    # clusters (-> ~0.07 ms per cluster) puts the break-even near
-    # 0.6 SA units = ~5e-4 of the root SA; measured sweep below.
-    # swept on the office 1080p forward (v5e): 0.002 -> 0.1727 s (K=239),
-    # 0.0005 -> 0.1632 (K=310), 0.0002 -> 0.1621 (K=380),
-    # 0.0001 -> 0.1661 (K=443); vs the subtree cut's 0.2003 s (K=247).
-    # The valley is flat below 0.001 — phase-1's per-cluster cost is
-    # smaller than the calibration estimate because the fused kernel
-    # amortizes it across subgroups.
+    # per-cluster penalty: every cluster costs phase-1 slab work and a
+    # sort key, independent of its content. Expressed as a fraction of
+    # the ROOT box SA so the knob is scene-scale-free; not yet swept on
+    # the H100 (ROADMAP 1.4).
     root_sa = float(_sa(tri_bbmin.min(0)[None], tri_bbmax.max(0)[None])[0])
     krel = _kappa_rel()
 
@@ -129,16 +116,14 @@ def _dp_cut(tri_bbmin: np.ndarray, tri_bbmax: np.ndarray, m: int):
 
     eps = np.float32(max(krel * root_sa, 1e-12))
     cuts = run_dp(eps)
-    # lane-boundary snap: the phase-1 key/visit arrays pad K to a
-    # multiple of 128 columns (ops/pallas_cluster._phase1_exact_pallas),
-    # so a K barely over a multiple pays a whole extra column block of
-    # slab tests for a handful of clusters. When K lands within 24 of
-    # the lower multiple, raise kappa until the cut fits it — the SA
-    # valley is flat there (PERF.md round-4 sweep: K 310 vs 380 is
-    # within 0.7% forward), so the snap is near-free in solve work and
-    # saves the padded phase-1 columns outright.
+    # 128-boundary snap: when K lands just above a multiple of 128,
+    # raise kappa until the cut fits it (the SA valley is flat there, so
+    # the snap is near-free in solve work). Its reason was the removed
+    # Pallas cluster kernel, which padded K to 128 lanes; the XLA scan has
+    # no such padding, so the snap only keeps cluster counts stable.
+    # A K that already is a multiple of 128 is left alone.
     target = (len(cuts) // 128) * 128
-    if target >= 128 and len(cuts) - target <= 24:
+    if target >= 128 and 0 < len(cuts) - target <= 24:
         eps_try = eps
         for _ in range(8):
             eps_try = np.float32(eps_try * 1.35)
@@ -262,7 +247,7 @@ def pack_cluster_tris(scene, tri_flat16: jnp.ndarray) -> jnp.ndarray:
 
 
 def pack_cluster_matrices(scene, tri_flat16: jnp.ndarray) -> jnp.ndarray:
-    """[K, 10, 4M] per-cluster MXU weights for the Cramer solve.
+    """[K, 10, 4M] per-cluster matrix weights for the Cramer solve.
 
     The ray-triangle system's determinants are bilinear in per-triangle
     constants and the ray features F = [o, d, w = o x d, 1], so a whole
@@ -275,7 +260,7 @@ def pack_cluster_matrices(scene, tri_flat16: jnp.ndarray) -> jnp.ndarray:
 
     (identities: det[c1,c2,-d] = -d.(c1 x c2); det[o-p2, c2, -d] expands
     via the scalar triple product into w- and d-terms). This is the
-    MXU-resident form of mymesh.cpp:176-236's solve.
+    matrix-product form of mymesh.cpp:176-236's solve.
     """
     tris = pack_cluster_tris(scene, tri_flat16)          # [K, M, 9]
     p0, p1, p2 = tris[..., 0:3], tris[..., 3:6], tris[..., 6:9]
@@ -300,14 +285,14 @@ def pack_cluster_matrices(scene, tri_flat16: jnp.ndarray) -> jnp.ndarray:
 
 
 def _ray_features(o, d):
-    """[R, 10] MXU feature rows: o, d, o x d, 1."""
+    """[R, 10] ray feature rows: o, d, o x d, 1."""
     w = jnp.cross(o, d)
     ones = jnp.ones(o.shape[:-1] + (1,), o.dtype)
     return jnp.concatenate([o, d, w, ones], axis=-1)
 
 
 def _cluster_solve_mxu(F, Wk, M):
-    """One cluster's (t, alpha, beta, S) via the MXU: [R,10]@[10,4M]."""
+    """One cluster's (t, alpha, beta, S) as one [R,10]@[10,4M] product."""
     out = jnp.dot(F, Wk, preferred_element_type=jnp.float32,
                   precision=jax.lax.Precision.HIGHEST)
     s = out[:, 0 * M:1 * M]
@@ -328,8 +313,8 @@ def _cluster_solve_mxu(F, Wk, M):
     return jnp.where(valid, t, isx.INF)
 
 
-#: clusters tested per while-loop iteration (amortizes the ~25us TPU
-#: while-iteration overhead over more dense work)
+#: clusters tested per while-loop iteration (amortizes the per-iteration
+#: loop overhead over more dense work; not yet swept on the H100)
 GROUP = knobs.env_int("MRT_CLUSTER_GROUP", 2, lo=1, hi=64)
 
 #: entry budget for materializing the [R, K] phase-1 mask; larger scenes

@@ -2,7 +2,7 @@
 
 Re-implements the math of the reference intersectors as masked vector
 ops over whole ray batches — no per-ray control flow, every test is one
-VPU pass:
+elementwise pass:
 
   * ray-sphere: solves the quadratic (missing framework ``Sphere``,
     required by the spheres/molecule/rings scenes — SURVEY.md §1.1)

@@ -22,7 +22,6 @@ Everything is jit-compiled once per (scene shapes, camera size, config).
 from __future__ import annotations
 
 import functools
-import os as _os
 
 import jax
 import jax.numpy as jnp
@@ -36,10 +35,8 @@ from myraytracer_tpu.ops import tracer as tr
 AA_SUBP = 4
 AA_THRESHOLD = 0.02
 
-#: default rays per tile for the primary pass (4 screen blocks). Swept on
-#: the office 1080p fwd (v5e, per-subgroup compaction): 4096 -> 0.511 s,
-#: 16384 -> 0.478 s, 65536 -> 0.525 s; >=262144 exceeds the 1 MB SMEM
-#: budget for the kernel's scalar-prefetch order/lb tables.
+#: default rays per tile for the primary pass (16 screen blocks); not
+#: yet swept on the H100 (ROADMAP 1.4).
 TILE = knobs.env_int("MRT_TILE", 1 << 14, lo=1024)
 
 
@@ -49,8 +46,7 @@ def _fit_tile(R: int, tile: int, quantum: int) -> int:
     The office 1080p batch is 2040 screen blocks; at the swept
     TILE=16384 (16 blocks) the stream needs 127.5 tiles, so the ray
     array is padded to 128 and un-padded after — a whole-image [R,3]
-    pad+slice pair that the XProf trace bills at 6.5 ms/frame. A tile
-    of 15 blocks divides exactly: no pad, no slice, and no half-wasted
+    pad+slice pair. A tile of 15 blocks divides exactly: no pad, no slice, and no half-wasted
     final kernel launch. Searches downward in whole quanta (screen
     blocks) and accepts the first exact divisor within 75% of the
     request; otherwise keeps the requested size (padding stays correct).
@@ -90,23 +86,39 @@ def _trace_tiled(scene, o, d, cfg: tr.TraceConfig, tile: int,
 #: 2D pixel-block edge for the primary pass: each trace tile covers a
 #: compact BLOCK x BLOCK screen region. Spatially coherent tiles are what
 #: let the cluster tracer's tile-level cond-skip cull whole triangle
-#: clusters (the TPU analogue of the 16x16 CUDA thread blocks,
-#: mytracer_gpu.cu:59-61 — there for memory coalescing, here for
-#: branch-level culling).
-
-#: round-1 knee was 64 (32 -> 1.03s, 64 -> 0.84s, 128 -> 1.07s,
-#: 256 -> 1.92s); after the packed-gather change the knee moved to 32
-#: (32/64/128 -> 0.320/0.343/0.422 s fwd, 0.512/0.523/0.608 fwd+bwd):
-#: a SUB=512 subgroup of a 32-wide block is a squarer 16x32 footprint
-#: with tighter touched-cluster unions
+#: clusters and keep the BVH walk's lockstep short (cf. the reference's
+#: 16x16 CUDA thread blocks, mytracer_gpu.cu:59-61). Not yet swept on
+#: the H100 (ROADMAP 1.4).
 BLOCK = knobs.env_int("MRT_BLOCK", 32, lo=8, power_of_two=True)
 
-#: rays per loss/grad remat tile (whole screen blocks). Round-4 re-sweep
-#: on the office 1080p fwd+bwd with the fused-topology pass (v5e):
-#: 15360 -> 0.296 s, 23040 -> 0.291 s, 30720 -> 0.298 s, 46080 -> 0.307 s
-#: — ~23k rays balance per-tile fixed costs (dense [T,48] cotangent
-#: carry adds, scatter launches) against remat working-set growth.
+#: rays per loss/grad remat tile (whole screen blocks): balances per-tile
+#: fixed costs (dense [T,48] cotangent carry adds, scatter launches)
+#: against remat working-set growth. Not yet swept on the H100
+#: (ROADMAP 1.4).
 LOSS_TILE = knobs.env_int("MRT_LOSS_TILE", 23040, lo=1024)
+
+
+@jax.jit
+def block_rays(camera: Camera):
+    """Primary rays through the pixel grid padded to whole BLOCK x BLOCK
+    screen blocks, in block order (the rays of one block contiguous).
+
+    One jitted function for :func:`render` and the sharded forward, so
+    both compute every ray with the same arithmetic: a ray one ulp apart
+    can flip its hit where it grazes an edge shared by two triangles.
+    """
+    bh = bw = BLOCK
+    Hp = ((camera.height + bh - 1) // bh) * bh
+    Wp = ((camera.width + bw - 1) // bw) * bw
+    ys, xs = jnp.meshgrid(
+        jnp.arange(Hp, dtype=jnp.float32), jnp.arange(Wp, dtype=jnp.float32),
+        indexing="ij",
+    )
+
+    def to_blocks(a):
+        return a.reshape(Hp // bh, bh, Wp // bw, bw).transpose(0, 2, 1, 3).reshape(-1)
+
+    return camera.primary_rays(to_blocks(xs), to_blocks(ys))
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "tile", "clamp"))
@@ -124,28 +136,13 @@ def render(
     differentiable path prefers the unclamped linear image).
     """
     H, W = camera.height, camera.width
-    # clamp=True marks the non-differentiated usage (the linear-image
-    # docstring contract): safe to route through the fused Pallas shading
-    # kernels, which have no VJP (ops/pallas_shade.py). clamp=False
-    # callers may grad through this function and keep the XLA shading.
-    if clamp:
-        cfg = cfg._replace(fused_shade=True)
     bh = bw = BLOCK
     Hp = ((H + bh - 1) // bh) * bh
     Wp = ((W + bw - 1) // bw) * bw
-    ys, xs = jnp.meshgrid(
-        jnp.arange(Hp, dtype=jnp.float32), jnp.arange(Wp, dtype=jnp.float32),
-        indexing="ij",
-    )
-    # block order: rays of one BLOCKxBLOCK screen region are contiguous
-    def to_blocks(a):
-        return a.reshape(Hp // bh, bh, Wp // bw, bw).transpose(0, 2, 1, 3).reshape(-1)
-
-    o, d = camera.primary_rays(to_blocks(xs), to_blocks(ys))
-    # trace tiles are whole numbers of screen blocks: coherence culling
-    # is per-SUB-ray subgroup (ops/pallas_cluster.py), so tiles larger
-    # than one block don't loosen the unions — they just shrink the
-    # number of sequential lax.map iterations
+    o, d = block_rays(camera)
+    # trace tiles are whole numbers of screen blocks, so every tile
+    # keeps the blocks' 2D coherence; larger tiles shrink the number of
+    # sequential lax.map iterations
     tile_eff = max(bh * bw, (tile // (bh * bw)) * (bh * bw))
     color = _trace_tiled(scene, o, d, cfg, tile_eff, quantum=bh * bw)
     img = (
@@ -203,15 +200,10 @@ def _loss_grad_tiled(scene, o, d, target, w, cfg, tile):
         # topology pass hoisted OUTSIDE value_and_grad: the expensive
         # traversal/occlusion scans run exactly once, and their stacked
         # results (~ints/bools per ray/segment) feed the loss as plain
-        # inputs the AD transform cannot re-run. The pass is stop-grad by
-        # definition, so it always may use the fused Pallas shading
-        # pipeline (ops/pallas_shade); the differentiable shading REPLAY
-        # below keeps the XLA path.
-        topo_cfg = cfg._replace(fused_shade=True)
+        # inputs the AD transform cannot re-run.
         topo_geom = shade.pack_shade_geom(scene)  # loop-invariant pack
         topo_all = jax.lax.map(
-            lambda x: tr.trace_topology(scene, x[0], x[1], topo_cfg,
-                                        topo_geom),
+            lambda x: tr.trace_topology(scene, x[0], x[1], cfg, topo_geom),
             (o_t, d_t))
 
         def shade_loss(p, geom, topo, ot, dt, tt, wt):
@@ -219,20 +211,11 @@ def _loss_grad_tiled(scene, o, d, target, w, cfg, tile):
                                geom=geom)
             return jnp.sum(wt[:, None] * (c - tt) ** 2)
 
-        # with the fused custom-VJP shading (ops/shade_grad.py) the
-        # checkpoint is REDUNDANT: the op's residuals are its inputs
-        # (per-ray columns + the shared pack table), so nothing big gets
-        # saved — and checkpointing would re-run the forward kernel a
-        # second time in the backward (measured +8 ms/frame)
-        if (knobs.env_bool01("MRT_REPLAY_CKPT", True)
-                and not cfg.resolved_fused_shade_grad(scene)):
-            # prevent_cse=False was tried (the checkpoint sits inside a
-            # lax.scan body, where jax.checkpoint's docs call the CSE
-            # barriers unnecessary) and measured MUCH slower: fwd+bwd
-            # pipelined 0.340 vs 0.244 s — without the barriers XLA
-            # CSEs the rematerialized shading INTO saved residuals,
-            # recreating the no-checkpoint residual-traffic failure
-            # (MRT_REPLAY_CKPT=0: 0.377 s). The barriers stay.
+        if knobs.env_bool01("MRT_REPLAY_CKPT", True):
+            # prevent_cse=False lets XLA CSE the rematerialized shading
+            # INTO saved residuals, recreating the no-checkpoint residual
+            # traffic; the barriers stay on by default (the A/B is not
+            # yet measured on the H100, ROADMAP 1.5).
             prevent = knobs.env_bool01("MRT_CKPT_PREVENT_CSE", True)
             shade_loss = jax.checkpoint(shade_loss, prevent_cse=prevent)
 
@@ -280,9 +263,8 @@ def restore_mirror_chain(scene):
         weight provably 0 after segment 0, dead segments contribute
         exactly 0 to both the value and every gradient, so the trimmed
         and full programs are mathematically identical — while the full
-        program's checkpointed backward pays ~2.4x (dead lax.cond
-        branches are not free under remat: measured office 1080p fwd+bwd
-        0.31 s -> 0.74 s).
+        program's checkpointed backward pays for them (dead lax.cond
+        branches are not free under remat).
 
     Inside a trace (mat_mirror a Tracer) values are unknowable: the
     scene is returned unchanged, matching the documented contract that
@@ -422,13 +404,7 @@ def _aa_refine(
     """
     top_idx, sel, o, d = _aa_rays(camera, img1, subp, threshold,
                                   budget_frac)
-    # the AA pass is never differentiated: fused Pallas shading is safe.
-    # phase1="exact": the compacted subray batch is screen-SCATTERED, so
-    # the any-hit hull unions are uselessly loose here (office AA 0.323
-    # with hull vs 0.285 with exact; coherent passes keep the hull)
-    colors = _trace_tiled(scene, o, d,
-                          cfg._replace(fused_shade=True, phase1="exact"),
-                          tile)
+    colors = _trace_tiled(scene, o, d, cfg, tile)
     return _aa_apply(camera, img1, top_idx, sel, colors, subp)
 
 

@@ -61,9 +61,8 @@ class ShadeGeom(NamedTuple):
     (3 vertex positions + 3 vertex normals + 5 material columns) into at
     most 3 wide row gathers. The win is partly in the BACKWARD (each
     gather's VJP is a full-image scatter-add pass) and partly device
-    time: TPU row gathers are latency-bound per KEY, not per byte
-    (measured ~3.2 ms/forward each on the office trace regardless of
-    row width), so fewer/wider gathers are nearly free.
+    time: one wide row per key instead of several narrow ones (the
+    per-gather cost on the H100 is not yet measured, ROADMAP 1.5).
 
     ``tri_pack`` therefore fuses the old tri16 + nrm16 tables into one
     [T, 32] row keyed by triangle id — and for a triangle-ONLY scene
@@ -82,23 +81,13 @@ class ShadeGeom(NamedTuple):
 
     Layout of ``tri_pack`` (f32):
       [:, 0:16]   p0 p1 p2 (9) | u0 u1 u2 v0 v1 v2 (6) | pad
-      [:, 16:32]  n0 n1 n2 (9) | phong flag (1) | mat id (1) |
-                  tex W, H, offset as floats (3, cols 27-29) | pad
+      [:, 16:32]  n0 n1 n2 (9) | phong flag (1) | pad
       [:, 32:48]  (tri-only scenes) the triangle's mat16 row
-
-    ``ana16`` packs the analytic primitives (spheres, then planes, then
-    cylinders) into one row table for the fused Pallas shading tier
-    (ops/pallas_shade.py), which resolves every hit kind in-kernel the
-    way the reference's single GPU kernel does (trace_device,
-    mytracer_gpu.cu:237-312). Layout per row: center (0-2) | aux vector
-    (3-5: plane normal / cylinder axis) | radius (6) | height (7) |
-    mat id (8) | pad.
     """
 
     tri_pack: jnp.ndarray  # [T, 32] or [T, 48] — see layout above
     tri_int: jnp.ndarray   # [T, 4] int32: mat id, tex W, tex H, tex offset
     mat16: jnp.ndarray     # [NM, 16] diffuse3 ambient3 specular3 shin mirror shadowable | pad
-    ana16: jnp.ndarray     # [A, 16] analytic primitive rows — see layout above
 
 
 def _tri_only(scene) -> bool:
@@ -134,20 +123,8 @@ def pack_shade_geom(scene) -> ShadeGeom:
         nrm9 = jnp.concatenate([vn[tv[:, 0]], vn[tv[:, 1]], vn[tv[:, 2]]],
                                axis=1)
         flag = (scene.tri_flags == 1).astype(jnp.float32)[:, None]
-        # column 26 carries the material id as a float: the fused Pallas
-        # shading path (ops/pallas_shade) reads it from the SAME row
-        # gather instead of paying a second per-ray gather of tri_mat
-        # (measured 14.8 ms/frame on the office forward). Exact for
-        # ids < 2^24.
-        mat_f = scene.tri_mat.astype(jnp.float32)[:, None]
-        # cols 27-29: the texture record (W, H, offset) as floats so the
-        # fused Pallas pre kernel computes the nearest-texel atlas index
-        # from the SAME row gather (exact for values < 2^24; the fused
-        # gate checks the atlas size)
-        tex_f = scene.tri_tex.astype(jnp.float32)
         parts = [pos9, uv6, 0.0 * z1,                       # [:, 0:16]
-                 nrm9, flag, mat_f, tex_f,
-                 jnp.zeros((nrm9.shape[0], 2), jnp.float32)]
+                 nrm9, flag, jnp.zeros((nrm9.shape[0], 6), jnp.float32)]
         if _tri_only(scene):
             parts.append(mat16[scene.tri_mat])              # [:, 32:48]
         tri_pack = jnp.concatenate(parts, axis=1)
@@ -156,32 +133,7 @@ def pack_shade_geom(scene) -> ShadeGeom:
     else:
         tri_pack = jnp.zeros((1, 32), jnp.float32)
         tri_int = jnp.zeros((1, 4), jnp.int32)
-    ana_rows = []
-    if scene.n_spheres:
-        S = scene.n_spheres
-        ana_rows.append(jnp.concatenate([
-            scene.sphere_center, jnp.zeros((S, 3), jnp.float32),
-            scene.sphere_radius[:, None], jnp.zeros((S, 1), jnp.float32),
-            scene.sphere_mat.astype(jnp.float32)[:, None],
-            jnp.zeros((S, 7), jnp.float32)], axis=1))
-    if scene.n_planes:
-        P = scene.n_planes
-        ana_rows.append(jnp.concatenate([
-            scene.plane_center, scene.plane_normal,
-            jnp.zeros((P, 2), jnp.float32),
-            scene.plane_mat.astype(jnp.float32)[:, None],
-            jnp.zeros((P, 7), jnp.float32)], axis=1))
-    if scene.n_cylinders:
-        C = scene.n_cylinders
-        ana_rows.append(jnp.concatenate([
-            scene.cyl_center, scene.cyl_axis,
-            scene.cyl_radius[:, None], scene.cyl_height[:, None],
-            scene.cyl_mat.astype(jnp.float32)[:, None],
-            jnp.zeros((C, 7), jnp.float32)], axis=1))
-    ana16 = (jnp.concatenate(ana_rows, axis=0) if ana_rows
-             else jnp.zeros((1, 16), jnp.float32))
-    return ShadeGeom(tri_pack=tri_pack, tri_int=tri_int, mat16=mat16,
-                     ana16=ana16)
+    return ShadeGeom(tri_pack=tri_pack, tri_int=tri_int, mat16=mat16)
 
 
 def resolve_hit(scene, o, d, kind, idx, texture_filter: str = "nearest",
@@ -315,7 +267,7 @@ def resolve_hit(scene, o, d, kind, idx, texture_filter: str = "nearest",
     # point back onto the exact surface is the identity in real
     # arithmetic, differentiable, and kills the acne without any epsilon
     # tuning. (The fp64 reference never needs this; this is the fp32
-    # TPU-native counterpart of its 1e-4 shadow offset.)
+    # counterpart of its 1e-4 shadow offset.)
     if scene.n_spheres:
         point = jnp.where(
             is_s[:, None],

@@ -6,9 +6,10 @@ lighting, README.md:17) becomes a *wavefront*: every stage runs once over
 the whole flat ray batch —
 
   intersect_scene : spheres / planes / cylinders tested against all rays
-                    in one VPU pass each; triangles through the cluster
-                    scan (TPU) or threaded-BVH walk; closest hit =
-                    argmin over the kinds
+                    in one dense pass each; triangles through the
+                    strategy default_tri_method() picks for the
+                    platform (threaded-BVH walk, cluster scan or brute
+                    force); closest hit = argmin over the kinds
   lighting        : Phong with shadow rays for ALL lights batched into
                     one [L*R] any-hit query
   trace           : primary hit + mirror chain folded into ONE
@@ -28,7 +29,6 @@ scan's first iteration with weight 1.
 
 from __future__ import annotations
 
-import os as _os
 from typing import NamedTuple, Optional, Tuple
 
 import jax
@@ -41,106 +41,51 @@ from myraytracer_tpu.utils import knobs
 from myraytracer_tpu.utils import vecmath as vm
 
 
+#: triangle strategy that ``tri_method="auto"`` resolves to, per JAX
+#: platform. The GPU entry is the fastest office 1080p forward+backward
+#: of the three XLA strategies on one H100 (PERF.md, "tri_method on the
+#: H100"); the CPU keeps the BVH walk the tests were written against.
+AUTO_TRI_METHOD = {"cpu": "bvh", "gpu": "cluster"}
+
+
+def default_tri_method(platform: Optional[str] = None) -> str:
+    """The triangle strategy ``tri_method="auto"`` runs on ``platform``
+    (default: JAX's default backend). Unknown platforms raise: no path
+    has been measured there."""
+    if platform is None:
+        platform = jax.default_backend()
+    try:
+        return AUTO_TRI_METHOD[platform]
+    except KeyError:
+        raise ValueError(
+            f"no triangle strategy chosen for platform {platform!r} "
+            f"(known: {sorted(AUTO_TRI_METHOD)}); pass tri_method "
+            f"explicitly") from None
+
+
 class TraceConfig(NamedTuple):
     """Static knobs for the integrator."""
 
     #: triangle intersection strategy:
-    #:   "auto"    -> "cluster" on TPU (dense streaming, no gathers),
-    #:                "bvh" elsewhere
+    #:   "auto"    -> default_tri_method() for the running platform
     #:   "bvh"     -> threaded-BVH lockstep walk (ops/traverse.py)
     #:   "cluster" -> cluster scan (ops/cluster.py)
     #:   "brute"   -> all-triangle scan (oracle / tiny scenes)
     tri_method: str = "auto"
     texture_filter: str = "nearest"  # "nearest" (parity) | "bilinear" (diff)
-    #: cluster tri test on the MXU (one [R,10]@[10,4M] matmul per
-    #: cluster) instead of the VPU elementwise solve. Measured SLOWER on
-    #: v5e (1.35s vs 1.07s office fwd): the contraction depth is only 10,
-    #: so the systolic array runs near-empty while fp32 HIGHEST costs 6
-    #: passes — kept as an option for future hardware.
+    #: cluster tri test as one [R,10]@[10,4M] matrix product per cluster
+    #: instead of the elementwise solve. The contraction depth is only
+    #: 10, so a matrix unit runs nearly empty; kept as an option, not yet
+    #: measured on the H100 (ROADMAP 3.2).
     cluster_mxu: bool = False
-    #: one triangle occlusion query per light (tighter per-bundle
-    #: compaction) vs a single [L*R] batched query. Measured equal on the
-    #: office scene (0.505 vs 0.508 s); batched keeps the program smaller.
+    #: one triangle occlusion query per light (tighter per-light culling)
+    #: vs a single [L*R] batched query; batched keeps the program smaller.
     shadow_per_light: bool = False
-    #: run the cluster scan as the Pallas megakernel (double-buffered
-    #: cluster DMA, per-512-ray-subgroup compacted cluster lists inside
-    #: the kernel). None = auto: ON for TPU (measured faster than the
-    #: XLA scan: office 1080p fwd 0.534 s vs 0.597 s, fwd+bwd 1.31 s vs
-    #: 1.64 s), OFF elsewhere (interpret mode is for tests only).
-    use_pallas_cluster: bool | None = None
-    #: fuse hit-resolve + shadow setup + Phong + bounce into two Pallas
-    #: kernels per segment (ops/pallas_shade.py). The kernels have NO
-    #: VJP, so this must stay False anywhere trace() is differentiated;
-    #: the forward drivers (ops/render.render, _aa_refine, the sharded
-    #: forward) opt in. Covers every primitive kind and textures (the
-    #: reference's single-kernel scope, mytracer_gpu.cu:237-312) for
-    #: scenes with lights on the Pallas path; silently ignored
-    #: otherwise (e.g. >MAX_MATERIALS materials, no lights).
-    fused_shade: bool = False
-    #: run the DIFFERENTIABLE shading replay (tracer.trace_shade) as a
-    #: fused custom-VJP segment per bounce with a hand-derived Pallas
-    #: backward (ops/shade_grad.py). Measured SLOWER than XLA AD on v5e
-    #: (office fwd+bwd 0.258 -> 0.265+ s): every kernel boundary
-    #: materializes ~30 per-ray columns (~19 ms/frame of lane relayout)
-    #: that AD's fused slices never pay — see PERF.md round-4
-    #: rejections. Kept OPT-IN (None = off unless MRT_FUSED_SHADE_GRAD=1)
-    #: with the VJP pinned against jax.vjp of the plain path in
-    #: tests/test_shade_grad.py, for hardware where the relayout
-    #: economics change.
-    fused_shade_grad: bool | None = None
-    #: per-config phase-1 compaction override passed to the cluster
-    #: megakernel (None = the MRT_PHASE1 env default). The AA refine
-    #: sets "exact": its scattered subray bundles make the any-hit
-    #: hulls uselessly loose (office AA 0.323 hull vs 0.285 exact),
-    #: while the coherent primary/shadow tiles keep the hull default.
-    phase1: str | None = None
 
     def resolved_method(self) -> str:
         if self.tri_method == "auto":
-            return "cluster" if jax.default_backend() == "tpu" else "bvh"
+            return default_tri_method()
         return self.tri_method
-
-    def resolved_pallas(self) -> bool:
-        if self.use_pallas_cluster is None:
-            return jax.default_backend() == "tpu"
-        return self.use_pallas_cluster
-
-    def resolved_fused_shade(self, scene) -> bool:
-        from myraytracer_tpu.ops.pallas_shade import MAX_MATERIALS
-
-        n_prims = (scene.n_tris + scene.n_spheres + scene.n_planes
-                   + scene.n_cylinders)
-        # the in-kernel atlas index arithmetic runs on f32 integers:
-        # exact only while every index fits the 24-bit mantissa
-        tex_ok = (not scene.has_textures
-                  or scene.texels.shape[0] < (1 << 24))
-        # triangles must ride the cluster megakernel; tri-less analytic
-        # scenes have no traversal kernel to gate on
-        tri_ok = (not scene.n_tris) or self.resolved_method() == "cluster"
-        return bool(
-            self.fused_shade
-            and n_prims > 0
-            and scene.n_lights >= 1
-            and scene.mat_diffuse.shape[0] <= MAX_MATERIALS
-            and tex_ok
-            and tri_ok
-            and self.resolved_pallas()
-        )
-
-    def resolved_fused_shade_grad(self, scene) -> bool:
-        import os as _os
-
-        on = self.fused_shade_grad
-        if on is None:
-            on = (jax.default_backend() == "tpu"
-                  and knobs.env_bool01("MRT_FUSED_SHADE_GRAD", False))
-        return bool(
-            on
-            and scene.n_tris
-            and not (scene.n_spheres or scene.n_planes or scene.n_cylinders)
-            and not scene.has_textures
-            and scene.n_lights >= 1
-        )
 
 
 def _tri_caches(scene, cfg: TraceConfig):
@@ -152,55 +97,46 @@ def _tri_caches(scene, cfg: TraceConfig):
     if cfg.resolved_method() == "cluster":
         from myraytracer_tpu.ops import cluster as _cl
 
-        if cfg.resolved_pallas():
-            from myraytracer_tpu.ops.pallas_cluster import (
-                pack_cluster_constants)
-
-            cl_tris = pack_cluster_constants(scene, tri_flat)
-        elif cfg.cluster_mxu:
+        if cfg.cluster_mxu:
             cl_tris = _cl.pack_cluster_matrices(scene, tri_flat)
         else:
             cl_tris = _cl.pack_cluster_tris(scene, tri_flat)
     return tri_flat, cl_tris
 
 
+#: jax.named_scope names of the integrator's layers; a profiler trace
+#: attributes device time to them (tools/trace_table.scope_shares)
+SCOPE_TRAVERSE = "traverse"   # triangle traversal, closest and any-hit
+SCOPE_SHADE = "shade"         # hit re-solve and Phong lighting
+
+
 def _closest_tris(scene, o, d, active, cfg, tri_flat, cl_tris,
                   t_max=None, any_hit=False):
     method = cfg.resolved_method()
-    if method == "bvh":
-        return traverse.traverse_bvh(scene, o, d, t_max=t_max,
-                                     any_hit=any_hit, active=active,
-                                     tri_flat=tri_flat)
-    if method == "cluster":
-        if cfg.resolved_pallas():
-            from myraytracer_tpu.ops.pallas_cluster import (
-                intersect_clusters_pallas)
+    with jax.named_scope(SCOPE_TRAVERSE):
+        if method == "bvh":
+            return traverse.traverse_bvh(scene, o, d, t_max=t_max,
+                                         any_hit=any_hit, active=active,
+                                         tri_flat=tri_flat)
+        if method == "cluster":
+            from myraytracer_tpu.ops import cluster as cl
 
-            return intersect_clusters_pallas(
-                scene, o, d, t_max=t_max, any_hit=any_hit, active=active,
-                cl_const=cl_tris,
-                interpret=jax.default_backend() != "tpu",
-                phase1=cfg.phase1,
-            )
-        from myraytracer_tpu.ops import cluster as cl
-
-        return cl.intersect_clusters(scene, o, d, t_max=t_max,
-                                     any_hit=any_hit, active=active,
-                                     cl_tris=cl_tris)
-    return traverse.intersect_tris_brute(scene, o, d, t_max=t_max)
+            return cl.intersect_clusters(scene, o, d, t_max=t_max,
+                                         any_hit=any_hit, active=active,
+                                         cl_tris=cl_tris)
+        return traverse.intersect_tris_brute(scene, o, d, t_max=t_max)
 
 
 def _closest_analytic(
     scene, o: jnp.ndarray, d: jnp.ndarray
-) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
+) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Closest analytic (sphere/plane/cylinder) hit for a ray batch.
 
-    Returns (kind [R] int32, idx [R] per-kind index, aidx [R] global row
-    index into ShadeGeom.ana16, t [R]); kind = KIND_MISS / t = INF where
-    no analytic primitive is hit. Evaluation order (sphere, plane,
-    cylinder, strict <) matches the sequential merge the reference's
-    ``intersect_scene`` performs over its object list so exact-tie
-    resolution is identical across the XLA and fused paths.
+    Returns (kind [R] int32, idx [R] per-kind index, t [R]); kind =
+    KIND_MISS / t = INF where no analytic primitive is hit. Evaluation
+    order (sphere, plane, cylinder, strict <) matches the sequential
+    merge the reference's ``intersect_scene`` performs over its object
+    list, so exact ties resolve the same way.
     """
     R = o.shape[0]
     o_ng = jax.lax.stop_gradient(o)
@@ -208,8 +144,6 @@ def _closest_analytic(
     best_t = jnp.full((R,), isx.INF)
     kind = jnp.zeros((R,), jnp.int32)
     idx = jnp.zeros((R,), jnp.int32)
-    aidx = jnp.zeros((R,), jnp.int32)
-    a_off = 0
 
     if scene.n_spheres:
         t_all = isx.ray_sphere(
@@ -223,8 +157,6 @@ def _closest_analytic(
         best_t = jnp.where(better, t_s, best_t)
         kind = jnp.where(better, shade.KIND_SPHERE, kind)
         idx = jnp.where(better, i_s.astype(jnp.int32), idx)
-        aidx = jnp.where(better, i_s.astype(jnp.int32) + a_off, aidx)
-        a_off += scene.n_spheres
 
     if scene.n_planes:
         t_all = isx.ray_plane(
@@ -238,8 +170,6 @@ def _closest_analytic(
         best_t = jnp.where(better, t_p, best_t)
         kind = jnp.where(better, shade.KIND_PLANE, kind)
         idx = jnp.where(better, i_p.astype(jnp.int32), idx)
-        aidx = jnp.where(better, i_p.astype(jnp.int32) + a_off, aidx)
-        a_off += scene.n_planes
 
     if scene.n_cylinders:
         t_all = isx.ray_cylinder(
@@ -255,8 +185,7 @@ def _closest_analytic(
         best_t = jnp.where(better, t_c, best_t)
         kind = jnp.where(better, shade.KIND_CYL, kind)
         idx = jnp.where(better, i_c.astype(jnp.int32), idx)
-        aidx = jnp.where(better, i_c.astype(jnp.int32) + a_off, aidx)
-    return kind, idx, aidx, best_t
+    return kind, idx, best_t
 
 
 def intersect_scene(
@@ -277,7 +206,7 @@ def intersect_scene(
     o_ng = jax.lax.stop_gradient(o)
     d_ng = jax.lax.stop_gradient(d)
 
-    kind, idx, _, best_t = _closest_analytic(scene, o_ng, d_ng)
+    kind, idx, best_t = _closest_analytic(scene, o_ng, d_ng)
 
     if scene.n_tris:
         tri = _closest_tris(scene, o_ng, d_ng, active, cfg, tri_flat, cl_tris)
@@ -374,10 +303,10 @@ def occluded_batched(
             shadowed_tri.append(tri.idx >= 0)
 
     # flat order of the L x R any-hit batch: "light"-major keeps each
-    # light's cone of shadow rays in its own SUB-subgroups; "ray"-major
-    # interleaves all L lights of a half-size pixel footprint into one
-    # subgroup, sharing the cluster DMAs between lights whose occluder
-    # sets overlap (A/B knob; see PERF.md round-3 sweep)
+    # light's cone of shadow rays contiguous; "ray"-major interleaves the
+    # L lights of each pixel, so lights whose occluder sets overlap walk
+    # the same nodes side by side (A/B knob, not yet measured on the
+    # H100)
     ray_major = knobs.env_choice("MRT_SHADOW_ORDER", "light",
                              ("light", "ray")) == "ray"
 
@@ -508,88 +437,6 @@ class _Bounce(NamedTuple):
     color: jnp.ndarray
 
 
-def _fused_segment_step(scene, geom, cl_tris, interp, carry,
-                        phase1=None):
-    """One Whitted segment through the fused kernel pipeline, shared by
-    trace() and trace_topology(): closest-hit merge over every primitive
-    kind (triangles via the cluster megakernel, analytic kinds via the
-    dense XLA tests) -> row gathers (tri_pack / ana16 / texels — XLA's
-    gather engine) -> pre kernel (per-kind resolve + shadow setup) ->
-    any-hit megakernel + analytic occlusion -> phong kernel (lighting +
-    texture override + blend + bounce). Same math as the XLA
-    ``segment``, minus ~20 glue fusions; the reference shades every kind
-    and textures in one kernel the same way (mytracer_gpu.cu:237-312,
-    511-544).
-
-    Returns (next bounce [color untouched], color add [R,3],
-    (kind, idx, hit, miss, shadow) topology record).
-    """
-    from myraytracer_tpu.ops import pallas_shade as ps
-    from myraytracer_tpu.ops.pallas_cluster import intersect_clusters_pallas
-
-    R = carry.o.shape[0]
-    L = scene.n_lights
-    live = carry.weight > 0.0
-    o_ng = jax.lax.stop_gradient(carry.o)
-    d_ng = jax.lax.stop_gradient(carry.d)
-
-    has_ana = bool(scene.n_spheres or scene.n_planes or scene.n_cylinders)
-    # sequential merge in the SAME order as intersect_scene (analytic
-    # kinds first, triangles last with strict <) so exact ties resolve
-    # identically across the fused and XLA paths
-    kind, pidx, aidx, t = _closest_analytic(scene, o_ng, d_ng)
-    if scene.n_tris:
-        tri = intersect_clusters_pallas(
-            scene, o_ng, d_ng, active=live, cl_const=cl_tris,
-            interpret=interp, phase1=phase1)
-        better = tri.t < t
-        kind = jnp.where(better, shade.KIND_TRI, kind)
-        pidx = jnp.where(better, jnp.maximum(tri.idx, 0), pidx)
-        t = jnp.where(better, tri.t, t)
-    kind = jnp.where(live, kind, shade.KIND_MISS)
-    valid = kind != shade.KIND_MISS
-
-    rows48 = None
-    if scene.n_tris:
-        gather_i = jnp.where(kind == shade.KIND_TRI, pidx, 0)
-        rows48 = geom.tri_pack[gather_i]
-    ana_rows = None
-    if has_ana:
-        ana_rows = geom.ana16[jnp.where(valid, aidx, 0)]
-    want_tex = bool(scene.has_textures) and scene.n_tris > 0
-
-    point, normal, mid, texid, so, sd, st, sact = ps.shade_pre(
-        carry.o, carry.d, t, kind, live, rows48, ana_rows, geom.mat16,
-        scene.light_pos, want_tex=want_tex,
-        atlas_size=scene.texels.shape[0], interpret=interp)
-
-    sactb = sact > 0
-    shadow = jnp.zeros((L, R), bool)
-    if scene.n_tris:
-        occ = intersect_clusters_pallas(
-            scene, so, sd, t_max=st, any_hit=True, active=sactb,
-            cl_const=cl_tris, interpret=interp, phase1=phase1)
-        shadow = (occ.idx >= 0).reshape(L, R)
-    if has_ana:
-        ana_sh = _analytic_occlusion(scene, so[:, :3], sd[:, :3], st)
-        shadow = shadow | (ana_sh & sactb).reshape(L, R)
-
-    texel = textured = None
-    if want_tex:
-        texel = scene.texels[jnp.maximum(texid, 0)]
-        textured = texid >= 0
-
-    add, o2, d2, w2 = ps.shade_phong(
-        carry.o, carry.d, carry.weight, valid, live, mid, point, normal,
-        shadow, geom.mat16, scene.light_pos, scene.light_color,
-        scene.ambience, scene.background, texel=texel, textured=textured,
-        interpret=interp)
-    h = live & valid
-    miss = live & ~valid
-    nxt = _Bounce(o=o2, d=d2, weight=w2, color=carry.color)
-    return nxt, add, (kind, pidx, h, miss, shadow)
-
-
 def trace(
     scene,
     o: jnp.ndarray,
@@ -615,41 +462,18 @@ def trace(
     if geom is None:
         geom = shade.pack_shade_geom(scene)
 
-    if cfg.resolved_fused_shade(scene):
-        interp = jax.default_backend() != "tpu"
-
-        def segment_fused(carry: _Bounce) -> _Bounce:
-            nxt, add, _ = _fused_segment_step(scene, geom, cl_tris,
-                                              interp, carry,
-                                              phase1=cfg.phase1)
-            return nxt._replace(color=carry.color + add)
-
-        def body_fused(carry: _Bounce, _):
-            nxt = jax.lax.cond(
-                jnp.any(carry.weight > 0.0), segment_fused, lambda c: c,
-                carry)
-            return nxt, None
-
-        init = _Bounce(
-            o=o, d=d,
-            weight=jnp.ones((R,), o.dtype),
-            color=jnp.zeros((R, 3), o.dtype),
-        )
-        out, _ = jax.lax.scan(body_fused, init, None,
-                              length=scene.n_segments)
-        return out.color
-
     def segment(carry: _Bounce) -> _Bounce:
         live = carry.weight > 0.0
         kind, idx = intersect_scene(scene, carry.o, carry.d, active=live,
                                     cfg=cfg, tri_flat=tri_flat,
                                     cl_tris=cl_tris)
-        hit = shade.resolve_hit(scene, carry.o, carry.d, kind, idx,
-                                cfg.texture_filter, geom=geom)
-        h = live & hit.valid
-        miss = live & ~hit.valid
-
-        local = lighting(scene, hit, -carry.d, h, cfg, tri_flat, cl_tris)
+        with jax.named_scope(SCOPE_SHADE):
+            hit = shade.resolve_hit(scene, carry.o, carry.d, kind, idx,
+                                    cfg.texture_filter, geom=geom)
+            h = live & hit.valid
+            miss = live & ~hit.valid
+            local = lighting(scene, hit, -carry.d, h, cfg, tri_flat,
+                             cl_tris)
         add = jnp.where(
             h[:, None],
             carry.weight[:, None] * (1.0 - hit.mirror[:, None]) * local,
@@ -713,49 +537,15 @@ def trace_topology(
         geom = jax.tree.map(jax.lax.stop_gradient, geom)
     L = max(scene.n_lights, 1)
 
-    if cfg.resolved_fused_shade(scene):
-        # the topology pass is stop-gradient by definition, so the fused
-        # kernel pipeline (no VJP) is always legal here; it records the
-        # same discrete outputs while skipping the XLA resolve/shadow
-        # glue. The phong kernel runs anyway to produce the next-ray
-        # bounce state; its color output is simply not recorded.
-        # (Misses record idx 0, matching the XLA topology bit-for-bit —
-        # consumers gate on kind.)
-        interp = jax.default_backend() != "tpu"
-
-        def segment_fused(carry):
-            nxt, _, rec = _fused_segment_step(scene, geom, cl_tris,
-                                              interp, carry,
-                                              phase1=cfg.phase1)
-            return nxt, rec
-
-        def body_fused(carry, _):
-            def dead(c):
-                return c, (
-                    jnp.full((R,), shade.KIND_MISS, jnp.int32),
-                    jnp.zeros((R,), jnp.int32),
-                    jnp.zeros((R,), bool),
-                    jnp.zeros((R,), bool),
-                    jnp.zeros((L, R), bool),
-                )
-
-            return jax.lax.cond(jnp.any(carry.weight > 0.0),
-                                segment_fused, dead, carry)
-
-        init = _Bounce(o=o, d=d, weight=jnp.ones((R,), o.dtype),
-                       color=jnp.zeros((R, 0), o.dtype))
-        _, (kind, idx, h, miss, sh) = jax.lax.scan(
-            body_fused, init, None, length=scene.n_segments)
-        return TraceTopo(kind=kind, idx=idx, hit=h, miss=miss, shadow=sh)
-
     def segment(carry):
         live = carry.weight > 0.0
         kind, idx = intersect_scene(scene, carry.o, carry.d, active=live,
                                     cfg=cfg, tri_flat=tri_flat,
                                     cl_tris=cl_tris)
-        hit = shade.resolve_hit(scene, carry.o, carry.d, kind, idx,
-                                cfg.texture_filter, need_colors=False,
-                                geom=geom)
+        with jax.named_scope(SCOPE_SHADE):
+            hit = shade.resolve_hit(scene, carry.o, carry.d, kind, idx,
+                                    cfg.texture_filter, need_colors=False,
+                                    geom=geom)
         h = live & hit.valid
         miss = live & ~hit.valid
 
@@ -822,47 +612,13 @@ def trace_shade(
     if geom is None:
         geom = shade.pack_shade_geom(scene)
 
-    if cfg.resolved_fused_shade_grad(scene):
-        from myraytracer_tpu.ops import shade_grad as sg
-
-        impl = "pallas" if jax.default_backend() == "tpu" else "interpret"
-
-        def segment_fused(args):
-            carry, x = args
-            kind, idx, h, miss, is_shadow = x
-            ti = jnp.clip(jnp.maximum(idx, 0), 0, scene.n_tris - 1)
-            lit = jnp.logical_not(is_shadow).astype(carry.o.dtype)
-            # the row gather lives INSIDE the op (residuals = the shared
-            # table + the tiny index column, never per-tile row copies)
-            add, o2, d2, w2 = sg.shade_segment(
-                impl, carry.o, carry.d, carry.weight, geom.tri_pack,
-                ti.astype(carry.o.dtype),
-                scene.light_pos, scene.light_color, scene.ambience,
-                scene.background,
-                (kind == shade.KIND_TRI).astype(carry.o.dtype),
-                h.astype(carry.o.dtype), miss.astype(carry.o.dtype),
-                lit)
-            return _Bounce(o=o2, d=d2, weight=w2,
-                           color=carry.color + add)
-
-        def body_fused(carry: _Bounce, x):
-            kind, idx, h, miss, is_shadow = x
-            nxt = jax.lax.cond(jnp.any(h | miss), segment_fused,
-                               lambda a: a[0], (carry, x))
-            return nxt, None
-
-        R = o.shape[0]
-        init = _Bounce(o=o, d=d, weight=jnp.ones((R,), o.dtype),
-                       color=jnp.zeros((R, 3), o.dtype))
-        out, _ = jax.lax.scan(body_fused, init, topo)
-        return out.color
-
     def segment(args):
         carry, x = args
         kind, idx, h, miss, is_shadow = x
-        hit = shade.resolve_hit(scene, carry.o, carry.d, kind, idx,
-                                cfg.texture_filter, geom=geom)
-        local = lighting_from_mask(scene, hit, -carry.d, is_shadow)
+        with jax.named_scope(SCOPE_SHADE):
+            hit = shade.resolve_hit(scene, carry.o, carry.d, kind, idx,
+                                    cfg.texture_filter, geom=geom)
+            local = lighting_from_mask(scene, hit, -carry.d, is_shadow)
         add = jnp.where(
             h[:, None],
             carry.weight[:, None] * (1.0 - hit.mirror[:, None]) * local,

@@ -2,8 +2,8 @@
 
 The reference traverses with an explicit per-thread ``int stack[64]`` and
 near-child-first push ordering (mytracer_gpu.cu:340-424). That shape —
-divergent stacks, data-dependent branching — is exactly what a TPU vector
-machine cannot run. Instead we walk the *threaded* BVH from ops/bvh.py:
+divergent stacks, data-dependent branching — does not vectorize over a
+ray batch in XLA. Instead we walk the *threaded* BVH from ops/bvh.py:
 
   * each ray carries one node pointer; a step either descends into a hit
     subtree (``entry`` link, near child first thanks to the per-octant
@@ -14,8 +14,7 @@ machine cannot run. Instead we walk the *threaded* BVH from ops/bvh.py:
     — an improvement over the reference AABB test which only checks
     ``tmax > eps`` (mybvh.cpp:134).
 
-Memory-access design (the whole game on TPU — gathers, not FLOPs, bound
-this kernel):
+Memory-access design (gathers, not FLOPs, bound this walk):
   * ONE [R, 8] row-gather per step fetches a node's bbox + leaf record
     (``bvh_nodes_packed``; ints bitcast into the f32 rows) instead of six
     separate gathers;
@@ -23,9 +22,8 @@ this kernel):
   * leaf triangles are packed as [T, 9] rows (leaf-contiguous, the same
     physical reordering as the reference's SoA partition swaps,
     mybvh.cpp:497-503) and fetched with one row-gather per leaf slot,
-    then tested densely on the VPU. (A windowed vmap(dynamic_slice)
-    fetch was tried first and is catastrophically slow on TPU — it
-    lowers to a sequential per-ray loop; row gathers are the fast path.)
+    then tested densely. (A windowed vmap(dynamic_slice) fetch lowers
+    to a sequential per-ray loop; row gathers are the fast path.)
   * several steps are unrolled inside each while-loop iteration to
     amortize the lockstep convergence check.
 
@@ -45,11 +43,10 @@ import jax.numpy as jnp
 from myraytracer_tpu.ops import intersect as isx
 from myraytracer_tpu.utils import knobs
 
-import os
-
 #: traversal steps unrolled per while-loop iteration (env-tunable for
 #: perf experiments; each unroll amortizes the lockstep convergence check
-#: at the cost of compile time and stragglers)
+#: at the cost of compile time and stragglers). Not yet swept on the
+#: H100 (ROADMAP 1.4).
 STEPS_INNER = knobs.env_int("MRT_STEPS_INNER", 4, lo=1, hi=64)
 
 
@@ -150,7 +147,7 @@ def traverse_bvh(
         is_leaf = count > 0
         leaf_work = box_hit & is_leaf
 
-        # dense leaf test: one row-gather per slot + [R] VPU batches
+        # dense leaf test: one row-gather per slot + [R] dense batches
         base = jnp.where(leaf_work, first, 0)
         t_new, i_new = s.t, s.idx
         for k in range(L):
@@ -173,7 +170,7 @@ def traverse_bvh(
     def cond(s: _State):
         keep = jnp.any(s.ptr >= 0)
         if max_steps is not None:
-            keep &= s.steps < max_steps  # perf-probe safety bound only
+            keep &= s.steps < max_steps  # safety bound for probes only
         return keep
 
     def body(s: _State) -> _State:

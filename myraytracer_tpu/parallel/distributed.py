@@ -1,16 +1,15 @@
-"""Multi-host (multi-process) execution: DCN across hosts, ICI within.
+"""Multi-host (multi-process) execution: one global mesh over every host.
 
 The reference is a single-process, single-GPU renderer
-(cudaSetDevice(0), /root/reference/mytracer_gpu.cu:34-38). The TPU-native
+(cudaSetDevice(0), /root/reference/mytracer_gpu.cu:34-38). This system's
 scaling axis (SURVEY.md §5.8, BASELINE.md "1 chip -> 1 host -> N>=2
 hosts") is pure ray data parallelism: scene + BVH replicated into every
-chip's HBM, ray tiles sharded over ONE global mesh spanning every
+card's memory, ray tiles sharded over ONE global mesh spanning every
 process's devices, zero forward communication, and a single psum of the
-scene-parameter gradients per training step. That psum is hierarchical
-by construction — XLA reduces over ICI within each host and only the
-per-host partials cross DCN — so no host/DCN-specific code is needed
-beyond building the mesh in process-major device order (jax.devices()
-already enumerates devices that way).
+scene-parameter gradients per training step. XLA lowers that psum to
+the collective library of the platform, so no host-specific code is
+needed beyond building the mesh in process-major device order
+(jax.devices() already enumerates devices that way).
 
 Launch (one process per host; also works one process per chip):
 
@@ -18,9 +17,10 @@ Launch (one process per host; also works one process per chip):
       python your_script.py
 
 with your script calling :func:`initialize_from_env` before first JAX
-use. On Cloud TPU pods `jax.distributed.initialize()` auto-discovers
-all three values, so `initialize_from_env` with no env set still does
-the right thing when MRT_DISTRIBUTED=1 requests it.
+use. Where a cluster manager (e.g. SLURM) is present,
+`jax.distributed.initialize()` auto-discovers all three values, so
+`initialize_from_env` with no env set still does the right thing when
+MRT_DISTRIBUTED=1 requests it.
 
 Tested without a pod by tools/multihost_dryrun.py: 2 processes x 4
 virtual CPU devices each (Gloo collectives), asserting the sharded
@@ -53,7 +53,7 @@ def initialize_from_env(
 
     Env: MRT_COORDINATOR=host:port, MRT_NUM_PROCESSES, MRT_PROCESS_ID;
     or MRT_DISTRIBUTED=1 alone to use JAX's cluster auto-detection
-    (Cloud TPU pod metadata / SLURM).
+    (e.g. SLURM).
     """
     coordinator = coordinator or os.environ.get("MRT_COORDINATOR")
     if num_processes is None:
@@ -80,9 +80,9 @@ def global_ray_mesh() -> Mesh:
     """1-D ray mesh over ALL devices of ALL processes.
 
     jax.devices() enumerates devices process-major, so contiguous ray
-    shards live on one host's chips and the grad psum's cross-host hop
-    reduces per-host partials over DCN (hierarchical all-reduce — XLA
-    picks that decomposition automatically for this device order).
+    shards live on one host's cards and the grad psum's cross-host hop
+    reduces per-host partials (the collective library picks that
+    decomposition for this device order).
     """
     return Mesh(np.asarray(jax.devices()), (RAY_AXIS,))
 

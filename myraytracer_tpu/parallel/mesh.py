@@ -1,10 +1,10 @@
 """Device-mesh construction for ray-parallel rendering.
 
-The only parallelism a Whitted renderer needs across chips is data
+The only parallelism a Whitted renderer needs across cards is data
 parallelism over rays/pixels (SURVEY.md §2.1): scene + BVH are replicated
-into every chip's HBM, ray tiles are sharded on a 1-D mesh, the forward
+into every card's memory, ray tiles are sharded on a 1-D mesh, the forward
 pass needs zero communication, and only scene-parameter gradients
-all-reduce (psum) in the backward — the TPU-native replacement for the
+all-reduce (psum) in the backward — the multi-card counterpart of the
 reference's single-GPU launch (cudaSetDevice(0), mytracer_gpu.cu:34-38).
 """
 

@@ -1,9 +1,9 @@
 """Sharded rendering + inverse-rendering training step (shard_map).
 
 Forward: rays sharded over the mesh's ``rays`` axis, scene replicated —
-zero cross-chip communication (SURVEY.md §5.8). Backward: per-shard
-scene-parameter gradients are ``psum``-reduced over ICI; XLA overlaps the
-collective with remaining backward work.
+zero cross-card communication (SURVEY.md §5.8). Backward: per-shard
+scene-parameter gradients are ``psum``-reduced across the cards; XLA
+overlaps the collective with remaining backward work.
 
 The "training step" is inverse rendering: fit differentiable scene
 parameters (vertex positions, normals, materials, lights, texels, sphere/
@@ -101,28 +101,18 @@ def render_sharded(scene, camera, mesh, cfg: tr.TraceConfig = tr.TraceConfig()):
     chip behavior (cluster culling, tiling, memory) is identical,
     communication stays zero.
     """
-    from myraytracer_tpu.ops.render import BLOCK, TILE, _trace_tiled
+    from myraytracer_tpu.ops.render import BLOCK, TILE, block_rays
 
     H, W = camera.height, camera.width
     bh = bw = BLOCK
     Hp = ((H + bh - 1) // bh) * bh
     Wp = ((W + bw - 1) // bw) * bw
-    ys, xs = jnp.meshgrid(
-        jnp.arange(Hp, dtype=jnp.float32), jnp.arange(Wp, dtype=jnp.float32),
-        indexing="ij",
-    )
-
-    def to_blocks(a):
-        return a.reshape(Hp // bh, bh, Wp // bw, bw).transpose(0, 2, 1, 3).reshape(-1)
-
-    o, d = camera.primary_rays(to_blocks(xs), to_blocks(ys))
+    o, d = block_rays(camera)
     # shards are whole numbers of screen blocks so every chip's tile
     # stream sees the same coherent 2D footprints as the single-chip path
     o, d, R = _pad_rays(o, d, mesh.devices.size * bh * bw)
     tile_eff = max(bh * bw, (TILE // (bh * bw)) * (bh * bw))
-    # forward-only driver: fused Pallas shading is safe (no grads here)
-    _fwd = _sharded_trace_program(mesh, cfg._replace(fused_shade=True),
-                                  tile_eff, bh * bw)
+    _fwd = _sharded_trace_program(mesh, cfg, tile_eff, bh * bw)
     color = _fwd(scene, o, d)[:R]
     img = (
         color.reshape(Hp // bh, Wp // bw, bh, bw, 3)
@@ -159,9 +149,8 @@ def render_aa_sharded(scene, camera, mesh,
     top_idx, sel, o, d = _aa_select_program(subp, threshold, budget_frac)(
         camera, img1)
     o, d, Rr = _pad_rays(o, d, n_shards * s2)
-    colors = _sharded_trace_program(
-        mesh, cfg._replace(fused_shade=True, phase1="exact"),
-        tile_eff, s2)(scene, o, d)[:Rr]
+    colors = _sharded_trace_program(mesh, cfg, tile_eff, s2)(
+        scene, o, d)[:Rr]
     return _aa_apply_program(subp)(camera, img1, top_idx, sel, colors)
 
 
@@ -250,11 +239,17 @@ def make_train_step(mesh, cfg: tr.TraceConfig = tr.TraceConfig(), lr: float = 1e
 
 def train_step_sharded(scene, o, d, target, mesh, lr: float = 1e-3,
                        cfg: tr.TraceConfig = tr.TraceConfig()):
-    """One-shot convenience wrapper around :func:`make_train_step`."""
+    """Convenience wrapper around :func:`make_train_step`; the step
+    program is built once per (mesh, lr, cfg) and reused."""
     R0 = o.shape[0]
     o, d, R = _pad_rays(o, d, mesh.devices.size)
     w = jnp.concatenate([jnp.ones((R0,), o.dtype), jnp.zeros((o.shape[0] - R0,), o.dtype)])
     if target.shape[0] != o.shape[0]:
         pad = o.shape[0] - target.shape[0]
         target = jnp.concatenate([target, jnp.zeros((pad, 3), target.dtype)])
-    return make_train_step(mesh, cfg, lr)(scene, o, d, target, w)
+    return _train_step_program(mesh, cfg, lr)(scene, o, d, target, w)
+
+
+#: cached builder: a fresh make_train_step per call would hand jax.jit a
+#: new function each time and recompile every step
+_train_step_program = functools.lru_cache(maxsize=None)(make_train_step)

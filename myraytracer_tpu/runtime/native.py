@@ -1,7 +1,8 @@
 """ctypes bindings for the native (C++) runtime.
 
-Loads ``libmrt_runtime.so`` (built by runtime/build.sh; auto-built on
-first use if a compiler is available). The NumPy builder in ops/bvh.py is
+Loads ``libmrt_runtime.so``, built by runtime/build.sh on first use when
+it is missing or older than ``bvh_builder.cpp`` (and a compiler is
+available). The NumPy builder in ops/bvh.py is
 the semantic reference; this is the fast path for large scenes — the
 Python threading-links pass alone is O(8N) interpreter steps, the native
 builder does the whole build in C++.
@@ -21,6 +22,28 @@ _TRIED = False
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SO = os.path.join(_HERE, "libmrt_runtime.so")
+_SRC = os.path.join(_HERE, "bvh_builder.cpp")
+
+
+def _stale(so: str, src: str) -> bool:
+    """The library is missing or older than its source."""
+    return (not os.path.exists(so)
+            or os.path.getmtime(src) > os.path.getmtime(so))
+
+
+def _build(so: str, here: str) -> bool:
+    """Compile into a private file, then rename it over ``so``: concurrent
+    builders (test workers) never load a half-written library."""
+    tmp = f"{so}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["bash", os.path.join(here, "build.sh"), tmp],
+                       check=True, capture_output=True, timeout=120)
+        os.replace(tmp, so)
+        return True
+    except (OSError, subprocess.SubprocessError):
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        return False
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -28,14 +51,8 @@ def _load() -> Optional[ctypes.CDLL]:
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    if not os.path.exists(_SO):
-        try:
-            subprocess.run(
-                ["bash", os.path.join(_HERE, "build.sh")],
-                check=True, capture_output=True, timeout=120,
-            )
-        except Exception:
-            return None
+    if _stale(_SO, _SRC) and not _build(_SO, _HERE):
+        return None
     try:
         lib = ctypes.CDLL(_SO)
     except OSError:

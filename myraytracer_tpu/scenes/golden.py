@@ -705,7 +705,7 @@ def scene_08_office(scale: float = 1.0, tess: int = 6, resolution=None) -> Scene
     # camera + wall geometry solved jointly against 28 image anchors
     # measured from the golden PNG (corner/edge lines of the left wall,
     # window bands, cabinet wall, floor lines — round-5 least-squares
-    # fit, max residual ~19 px at 500x500; see ROUND5.md)
+    # fit, max residual ~19 px at 500x500)
     s.set_camera(eye=(-1.4463, 1.5923, 5.3346),
                  center=(-0.3003, 1.1542, -0.6405), up=(0, 1, 0),
                  fovy=47.82, width=w, height=h)

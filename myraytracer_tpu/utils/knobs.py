@@ -2,14 +2,14 @@
 
 Every performance/debug environment variable the framework reads goes
 through these getters, which fail LOUDLY at first read (usually module
-import) instead of silently changing program shapes or perf: round-4
-review flagged that a typo'd ``MRT_CLUSTER_GROUP=o`` or an
-out-of-range ``MRT_LOSS_TILE`` would either crash deep inside tracing
-or quietly mis-tile the render (VERDICT round 4, "knob sprawl").
+import) instead of silently changing program shapes or perf: a typo'd
+``MRT_CLUSTER_GROUP=o`` or an out-of-range ``MRT_LOSS_TILE`` would
+otherwise either crash deep inside tracing or quietly mis-tile the
+render.
 
 ``REGISTRY`` doubles as the documentation table printed by
-``python -m myraytracer_tpu.utils.knobs`` and mirrored in PERF.md; each
-entry records the default and where the value was swept/measured.
+``python -m myraytracer_tpu.utils.knobs``; each entry records the
+default, its constraint and where the value is used.
 """
 
 from __future__ import annotations
@@ -26,21 +26,11 @@ REGISTRY = {
     "MRT_REPLAY_CKPT": ("1", "0|1", "checkpoint the shading replay; PERF round-4 A/B"),
     "MRT_CKPT_PREVENT_CSE": ("1", "0|1", "checkpoint CSE barriers; 0 measured 0.340 vs 0.244 (rejected)"),
     "MRT_SHADOW_ORDER": ("light", "light|ray", "shadow batch order; PERF round-3 sweep"),
-    "MRT_FUSED_SHADE_GRAD": ("0", "0|1", "custom-VJP shading replay (measured slower; opt-in)"),
-    "MRT_RAY_TILE": ("1024", "int multiple of 1024", "pallas_cluster block rays"),
-    "MRT_SUB": ("512", "int divisor of RAY_TILE", "compaction subgroup; round-2 sweep"),
-    "MRT_GROUP": ("1", "int >= 1", "clusters per kernel loop iteration"),
-    "MRT_SMEM_TABLE_BUDGET": ("600000", "int >= 1", "scalar-prefetch SMEM guard (tiny values force chunking)"),
-    "MRT_PHASE1": ("auto", "auto|hull|exact|frustum", "phase-1 compaction variant"),
-    "MRT_P1_TILE": ("1024", "int multiple of 1024", "rays per phase-1 kernel program; bigger measured slower"),
-    "MRT_PHASE1_KERNEL": ("1", "0|1", "fused Pallas phase-1 on TPU"),
-    "MRT_PALLAS_EARLY_EXIT": ("1", "0|1", "front-to-back early-out in the megakernel"),
     "MRT_CLUSTER_CUT": ("dp", "dp|subtree", "cluster cut algorithm; PERF round-4"),
     "MRT_CLUSTER_KAPPA": ("auto", "auto or float > 0", "DP cut per-cluster penalty (fraction of root SA)"),
     "MRT_CLUSTER_MERGE_SA": ("0.75", "float >= 0", "subtree-cut merge SA ratio (0 disables)"),
     "MRT_CLUSTER_GROUP": ("2", "int >= 1", "XLA cluster scan group size"),
     "MRT_CLUSTER_STORE_LIMIT": ("33554432", "int >= 1", "[R,K] phase-1 mask entry budget"),
-    "MRT_FORCE_CPU": ("0", "0|1", "force the CPU backend (bench/tests)"),
     "MRT_NO_NATIVE": ("0", "0|1", "disable the C++ BVH builder"),
     "MRT_DISTRIBUTED": ("0", "0|1", "jax.distributed init at import (parallel/distributed.py)"),
     "MRT_COORDINATOR": ("", "host:port", "jax.distributed coordinator address"),

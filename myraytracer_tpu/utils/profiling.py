@@ -1,4 +1,4 @@
-"""Profiling & timing: the TPU equivalent of the reference's tooling.
+"""Profiling & timing: the counterpart of the reference's tooling.
 
 The reference brackets kernels with gettimeofday (common/common.h:66-72)
 and wraps Nsight Compute with a curated metric list (my-ncu.sh). Here:
@@ -47,10 +47,11 @@ class Timer:
 
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
-    """jax.profiler trace context — view with XProf/TensorBoard.
+    """jax.profiler trace context — reduce with tools/trace_table.py or
+    view with XProf/TensorBoard.
 
-    Replaces my-ncu.sh's role: per-kernel timing, HBM bandwidth and
-    roofline live in the captured trace.
+    Replaces my-ncu.sh's role: per-kernel device time and the device
+    idle share come from the captured trace (tools/trace_table.py).
     """
     jax.profiler.start_trace(log_dir)
     try:

@@ -1,9 +1,9 @@
 """Batched 3-vector math on ``[..., 3]`` float arrays.
 
-TPU-native counterpart of the reference's scalar vec3/vec4 helper layer
+Batched counterpart of the reference's scalar vec3/vec4 helper layer
 (reference: myutils.{h,cpp}, myutils_gpu.h, mybvh.h:181-190).  Everything
 here is shape-polymorphic over leading batch dimensions so a whole tile of
-rays is one VPU-friendly array op; nothing ever loops per ray.
+rays is one array op; nothing ever loops per ray.
 
 All functions are jit/grad/vmap-safe pure JAX.
 """

@@ -403,3 +403,43 @@ class OracleRenderer:
                             acc += self.trace(eye, d)
                     out[y, x] = np.minimum(acc / (subp * subp), 1.0)
         return out
+
+
+def check_pixels(img, scene, camera, n, seed, atol, quantized=False):
+    """Compare a rendered image with the oracle on n sampled pixels.
+
+    Pixels whose closest hit is an fp32 tie (:meth:`is_tie_pixel`), or
+    whose oracle color moves by at least the observed difference under a
+    quarter-pixel jitter (:meth:`is_ill_conditioned_pixel`), are
+    ill-posed at fp32: they are counted as skipped, not as passed.
+    ``quantized``: ``img`` came from an 8-bit PNG, so the oracle color is
+    rounded the same way and one 8-bit step is added to ``atol`` for the
+    rounding of the two sides. Raises AssertionError on any other pixel
+    off by more than the tolerance.
+
+    Returns (checked, skipped, max error over the checked pixels).
+    """
+    orc = OracleRenderer(scene, camera)
+    rng = np.random.default_rng(seed)
+    xs = rng.integers(0, camera.width, n)
+    ys = rng.integers(0, camera.height, n)
+    tol = atol + (1.0 / 255.0 if quantized else 0.0)
+    skipped, worst, bad = 0, 0.0, []
+    for x, y in zip(xs, ys):
+        want = np.minimum(orc.trace(*orc._ray(x, y)), 1.0)
+        if quantized:
+            want = np.floor(np.clip(want, 0.0, 1.0) * 255.0 + 0.5) / 255.0
+        err = float(np.abs(np.asarray(img[y, x], np.float64) - want).max())
+        if err <= tol:
+            worst = max(worst, err)
+        elif orc.is_tie_pixel(x, y) or orc.is_ill_conditioned_pixel(x, y,
+                                                                     err):
+            skipped += 1
+        else:
+            bad.append((int(x), int(y), err))
+    if bad:
+        raise AssertionError(
+            f"{len(bad)} of {n} pixels differ from the fp64 oracle by more "
+            f"than {tol:.5f}: {bad[:8]}")
+    return n - skipped, skipped, worst
+

@@ -1,5 +1,5 @@
 """Golden-scene harness: every reference scene builds, renders, and the
-vectorized TPU path agrees with the independent scalar oracle on sampled
+vectorized XLA path agrees with the independent scalar oracle on sampled
 pixels (SURVEY.md §4: golden-image reproduction + cross-backend
 agreement)."""
 

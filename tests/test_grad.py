@@ -202,7 +202,7 @@ def test_render_loss_grad_matches_direct():
 
 
 def test_mirror_grad_full_chain_on_trimmed_scene():
-    """The live_depth trap (VERDICT r3 #7): a mirror-free build statically
+    """The live_depth trap: a mirror-free build statically
     trims the Whitted chain to 1 segment; once an optimizer raises
     mat_mirror above 0 that trimmed program drops the reflected-radiance
     term from d(loss)/d(mat_mirror). render_loss_grad must restore the

@@ -88,10 +88,47 @@ def test_checkpoint_roundtrip(tmp_path, setup):
     np.testing.assert_allclose(r1.losses, r2.losses, rtol=1e-4)
 
 
+def test_npz_checkpoint_resume(tmp_path, setup):
+    """Save after 3 steps, restore into a fresh renderer: parameters,
+    optimizer state and step count come back, and the next steps match."""
+    s, data, o, d, target = setup
+    o, d, target = o[:24], d[:24], target[:24]
+    wrong = dataclasses.replace(data, light_color=data.light_color * 0.5)
+
+    def make():
+        return InverseRenderer(wrong, param_names=("light_color",),
+                               optimizer=optax.adam(3e-2))
+
+    inv = make()
+    inv.fit(o, d, target, steps=3)
+    ck = str(tmp_path / "fit.npz")
+    inv.save_checkpoint(ck)
+    inv2 = make()
+    inv2.restore_checkpoint(ck)
+    assert inv2.step_count == 3
+    for a, b in zip(jax.tree.leaves((inv.params, inv.opt_state)),
+                    jax.tree.leaves((inv2.params, inv2.opt_state))):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    r1 = inv.fit(o, d, target, steps=2)
+    r2 = inv2.fit(o, d, target, steps=2)
+    np.testing.assert_allclose(r2.losses, r1.losses, rtol=1e-6)
+    assert inv2.step_count == 5
+
+
+def test_npz_checkpoint_rejects_other_parameters(tmp_path, setup):
+    _, data, o, d, target = setup
+    inv = InverseRenderer(data, param_names=("light_color",))
+    ck = str(tmp_path / "fit.npz")
+    inv.save_checkpoint(ck)
+    other = InverseRenderer(data, param_names=("mat_diffuse",))
+    with pytest.raises(ValueError, match="does not match"):
+        other.restore_checkpoint(ck)
+
+
 @pytest.mark.slow
 def test_sharded_fit_matches_unsharded(setup):
     """InverseRenderer(mesh=...) must reproduce the single-device fit:
-    same losses (1e-5) and same recovered parameters (VERDICT r2 #9)."""
+    same losses (1e-5) and same recovered parameters."""
     from myraytracer_tpu.parallel import make_mesh
 
     s, data, o, d, target = setup
@@ -114,7 +151,7 @@ def test_sharded_fit_matches_unsharded(setup):
 @pytest.mark.slow
 def test_camera_pose_recovery(setup):
     """Perturbed camera pose optimizes back to reproduce the target —
-    the differentiable-camera capstone (VERDICT r2 #6)."""
+    the differentiable-camera capstone."""
     s, data, *_ = setup
     cam = s.camera
     xs, ys = cam.pixel_grid()
@@ -139,7 +176,7 @@ def test_camera_pose_recovery(setup):
 @pytest.mark.slow
 def test_camera_fovy_recovery(setup):
     """A 10% zoom (fovy) perturbation optimizes back to the true value —
-    the differentiable-intrinsics capstone (VERDICT r3 #6)."""
+    the differentiable-intrinsics capstone."""
     s, data, *_ = setup
     cam = s.camera
     xs, ys = cam.pixel_grid()

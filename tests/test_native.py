@@ -98,3 +98,31 @@ def test_native_sah_matches_python(n):
     np.testing.assert_array_equal(a.count, b.count)
     np.testing.assert_array_equal(a.entry, b.entry)
     np.testing.assert_allclose(a.bbmin, b.bbmin, rtol=1e-6)
+
+
+def test_stale_library_is_rebuilt(tmp_path, monkeypatch):
+    """A library older than bvh_builder.cpp is rebuilt before loading."""
+    import shutil
+
+    from myraytracer_tpu.runtime import native
+
+    here = tmp_path / "runtime"
+    here.mkdir()
+    for f in ("bvh_builder.cpp", "build.sh"):
+        shutil.copy(os.path.join(native._HERE, f), here / f)
+    so = here / "libmrt_runtime.so"
+    so.write_bytes(b"stale: not a shared library")
+    src = here / "bvh_builder.cpp"
+    os.utime(so, (1_000_000, 1_000_000))  # far older than the source
+    monkeypatch.setattr(native, "_HERE", str(here))
+    monkeypatch.setattr(native, "_SO", str(so))
+    monkeypatch.setattr(native, "_SRC", str(src))
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_TRIED", False)
+    assert native._stale(str(so), str(src))
+    if shutil.which("g++") is None:
+        pytest.skip("no C++ compiler to rebuild with")
+    assert native.native_available()
+    assert so.read_bytes()[:4] == b"\x7fELF"
+    assert not native._stale(str(so), str(src))
+    assert not list(here.glob("*.tmp"))

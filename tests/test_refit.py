@@ -56,14 +56,6 @@ def displace(data, shift=(0.9, 0.35, -0.4), scale=1.35):
     return dataclasses.replace(data, vertex_pos=jnp.asarray(vp2))
 
 
-def trace_with(data, o, d, method, pallas=False):
-    cfg = tr.TraceConfig(tri_method=method,
-                         use_pallas_cluster=pallas or None if method == "cluster" else False)
-    if method == "cluster":
-        cfg = tr.TraceConfig(tri_method="cluster", use_pallas_cluster=pallas)
-    return tr.trace(data, o, d, cfg)
-
-
 def test_refit_identity_when_unmoved():
     _, data = mesh_scene()
     r = refit_accel(data)
@@ -136,19 +128,17 @@ def test_refit_restores_exact_hits_after_displacement():
     assert int(jnp.sum(ref.idx >= 0)) > 100  # rays genuinely hit
 
     refit = refit_accel(moved)
-    for method, pallas in (("cluster", False), ("cluster", True), ("bvh", False)):
+    for method in ("cluster", "bvh"):
         if method == "cluster":
             from myraytracer_tpu.ops.cluster import intersect_clusters
-            from myraytracer_tpu.ops.pallas_cluster import intersect_clusters_pallas
-            fn = (lambda sc: intersect_clusters_pallas(sc, o, d, interpret=True)
-                  ) if pallas else (lambda sc: intersect_clusters(sc, o, d))
+            fn = lambda sc: intersect_clusters(sc, o, d)
         else:
             from myraytracer_tpu.ops.traverse import traverse_bvh
             fn = lambda sc: traverse_bvh(sc, o, d)
 
         stale = fn(moved)
         assert int(jnp.sum(stale.idx >= 0)) < int(jnp.sum(ref.idx >= 0)), (
-            f"{method}/pallas={pallas}: stale bounds should drop hits "
+            f"{method}: stale bounds should drop hits "
             "(negative control for the refit)")
 
         fixed = fn(refit)
@@ -201,7 +191,7 @@ def test_inverse_vertex_fit_on_displaced_target(monkeypatch):
     s, data = plate_scene()
     target_scene = rot_shift(data)
     o, d = central_rays(s.camera, n=400, margin=0.02, seed=5)
-    cfg = tr.TraceConfig(tri_method="cluster", use_pallas_cluster=False)
+    cfg = tr.TraceConfig(tri_method="cluster")
     target = tr.trace(refit_accel(target_scene), o, d, cfg)
 
     inv = InverseRenderer(data, param_names=("vertex_pos",),
@@ -236,7 +226,7 @@ def test_sharded_vertex_fit_matches_unsharded():
     s, data = plate_scene()
     target_scene = rot_shift(data, deg=12.0, shift=(0.0, 0.0, 0.3))
     o, d = central_rays(s.camera, n=400, margin=0.02, seed=7)
-    cfg = tr.TraceConfig(tri_method="cluster", use_pallas_cluster=False)
+    cfg = tr.TraceConfig(tri_method="cluster")
     target = tr.trace(refit_accel(target_scene), o, d, cfg)
 
     inv1 = InverseRenderer(data, param_names=("vertex_pos",),

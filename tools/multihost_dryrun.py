@@ -1,10 +1,10 @@
 """Multi-process (multi-host stand-in) dryrun for the sharded train step.
 
-Validates SURVEY.md §5.8's missing axis without a pod: the parent spawns
+Validates SURVEY.md §5.8's missing axis without a cluster: the parent spawns
 N_PROC processes, each with N_LOCAL virtual CPU devices
 (xla_force_host_platform_device_count), wired together by
 jax.distributed.initialize + Gloo CPU collectives — the same program
-structure as one process per TPU host over DCN. Every process builds the
+structure as one process per multi-card host. Every process builds the
 same scene, shards the global ray batch over the global 1-D mesh
 (parallel.distributed), runs ONE sharded inverse-rendering train step
 (fwd + bwd + grad psum + SGD), and process 0 reports the loss. The
